@@ -1,7 +1,7 @@
 """Reference-parity oracle: a slow numpy transliteration of Pt_TraceRay.
 
 This is a TEST FIXTURE, not framework code.  It mirrors the reference
-integrator's math line-by-line (citations below are into /root/reference):
+integrator's math line-by-line (citations below are into the reference's sources):
 
   - trace loop / RR / emission gating   path_tracer.c:2306-2420 (Pt_TraceRay)
   - principled BSDF eval + scatter      path_tracer.c:1475-1727
@@ -312,8 +312,8 @@ def scene_from_entities(entities, pool, sky=None) -> OracleScene:
     sampler (sampler.h:176-249).  `sky` ([6,S,S,3]) enables the cubemap
     scope: misses return sky radiance and MatFlag.SKY surfaces emit it
     (GetSky/GetEmission, path_tracer.c:1247-1326)."""
-    from pim_tpu.geom.entities import flatten
-    from pim_tpu.geom.material import MatFlag
+    from pim.geom.entities import flatten
+    from pim.geom.material import MatFlag
 
     f = flatten(entities)
     t = f.mat_ids.shape[0]

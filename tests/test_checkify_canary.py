@@ -7,8 +7,7 @@ Three injections, each driven through the real RenderSystem frame loop:
      (the non-debug path is ALLOWED to go NaN — that is exactly the
      silent poisoning the guard exists to catch).
   2. degenerate (zero-area, collinear) triangle -> shades cleanly in both
-     modes (intersectors mask the inf/NaN plane equations; cluster.py
-     _bw_lanes documents the IEEE argument).
+     modes (the intersectors reject |det| <= 1e-12 before dividing).
   3. zero-area emissive -> shades cleanly in both modes (a zero-area
      light emits zero power and must not NaN the NEE/MIS weights).
 """
@@ -16,11 +15,11 @@ Three injections, each driven through the real RenderSystem frame loop:
 import numpy as np
 import pytest
 
-from pim_tpu.core import cvars as cv
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.geom.material import Material, MatFlag, TexturePool
-from pim_tpu.geom.mesh import MeshData
-from pim_tpu.render.render_system import RenderSystem
+from pim.core import cvars as cv
+from pim.geom.cornell import build_cornell_box
+from pim.geom.material import Material, MatFlag, TexturePool
+from pim.geom.mesh import MeshData
+from pim.render.render_system import RenderSystem
 
 
 RES = 16

@@ -2,11 +2,11 @@ import os
 
 import numpy as np
 
-from pim_tpu.core import cvars  # noqa: F401 — registers the engine cvars
-from pim_tpu.core.cmd import CmdStat, CmdSystem, cmd_getopt
-from pim_tpu.core.crate import Crate
-from pim_tpu.core.cvar import CVarType, cvar, get_registry
-from pim_tpu.core.guid import guid_from_str
+from pim.core import cvars  # noqa: F401 — registers the engine cvars
+from pim.core.cmd import CmdStat, CmdSystem, cmd_getopt
+from pim.core.crate import Crate
+from pim.core.cvar import CVarType, cvar, get_registry
+from pim.core.guid import guid_from_str
 
 
 def test_cvar_clamp_and_dirty():
@@ -30,7 +30,7 @@ def test_cvar_vector_parse():
 
 
 def test_cvar_save_load(tmp_path):
-    from pim_tpu.core.cvar import CVarFlag
+    from pim.core.cvar import CVarFlag
 
     cv = cvar("test_saved", CVarType.Int, 7, flags=CVarFlag.SAVE)
     cv.set(42)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pim_tpu.render import cubemap as cmaps
+from pim.render import cubemap as cmaps
 
 
 def test_mip_chain_shapes():
@@ -52,8 +52,8 @@ def test_read_convolved_trilinear_between_mips():
 
 @pytest.mark.slow
 def test_progressive_bake_converges_on_cornell():
-    from pim_tpu.geom.cornell import build_cornell_box
-    from pim_tpu.render.scene import build_scene
+    from pim.geom.cornell import build_cornell_box
+    from pim.render.scene import build_scene
 
     ents, pool = build_cornell_box("boxes")
     meta, arrays, lights = build_scene(ents, pool, backend="brute")

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pim_tpu.render.denoise import DenoiseType, denoise
+from pim.render.denoise import DenoiseType, denoise
 
 H = W = 64
 

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pim_tpu.math import dist1d
+from pim.math import dist1d
 
 
 def test_bake_normalizes():

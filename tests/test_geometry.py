@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pim_tpu.math import cubic_fit as cf
-from pim_tpu.math import geometry as g
-from pim_tpu.math.vec3 import V3
+from pim.math import cubic_fit as cf
+from pim.math import geometry as g
+from pim.math.vec3 import V3
 
 
 def v3(*a):

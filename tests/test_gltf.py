@@ -12,11 +12,11 @@ import os
 import numpy as np
 import pytest
 
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.geom.entities import flatten
-from pim_tpu.geom.gltf import load_gltf_scene, save_gltf_scene
-from pim_tpu.geom.maps import build_map_scene, export_map
-from pim_tpu.geom.material import MatFlag
+from pim.geom.cornell import build_cornell_box
+from pim.geom.entities import flatten
+from pim.geom.gltf import load_gltf_scene, save_gltf_scene
+from pim.geom.maps import build_map_scene, export_map
+from pim.geom.material import MatFlag
 
 
 def _small_map():
@@ -116,10 +116,10 @@ def test_map_renders_end_to_end(tmp_path):
     """Full pipeline: generate -> export -> import -> build_scene -> trace."""
     import jax.numpy as jnp
 
-    from pim_tpu.core import rng
-    from pim_tpu.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
-    from pim_tpu.render.integrator import trace_rays
-    from pim_tpu.render.scene import build_scene
+    from pim.core import rng
+    from pim.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
+    from pim.render.integrator import trace_rays
+    from pim.render.scene import build_scene
 
     path = export_map("tinymap", base_dir=str(tmp_path), rooms=(1, 2),
                       spheres_per_room=1, sphere_steps=8, tex_size=32)

@@ -13,15 +13,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.render.camera import Camera, DofInfo, camera_arrays
-from pim_tpu.render.diff import (
+from pim.geom.cornell import build_cornell_box
+from pim.render.camera import Camera, DofInfo, camera_arrays
+from pim.render.diff import (
     DiffParams,
     extract_params,
     make_loss_fn,
     make_train_step,
 )
-from pim_tpu.render.scene import build_scene
+from pim.render.scene import build_scene
 
 W = H = 16
 BOUNCES = 3
@@ -88,11 +88,11 @@ def cornell_setup():
 @pytest.fixture(scope="module")
 def sky_setup():
     """Open scene: floor + one box + emissive slab, sun overhead."""
-    from pim_tpu.geom.cornell import _gen_material
-    from pim_tpu.geom.entities import Entities
-    from pim_tpu.geom.material import TexturePool
-    from pim_tpu.geom.mesh import gen_box_mesh
-    from pim_tpu.render.sky import bake_sky_cubemap, earth_atmosphere
+    from pim.geom.cornell import _gen_material
+    from pim.geom.entities import Entities
+    from pim.geom.material import TexturePool
+    from pim.geom.mesh import gen_box_mesh
+    from pim.render.sky import bake_sky_cubemap, earth_atmosphere
 
     ents = Entities()
     pool = TexturePool()
@@ -192,7 +192,7 @@ def test_grad_sun_luminance(sky_setup):
 def test_inverse_rendering_converges(cornell_setup):
     """End-to-end: recover perturbed material albedos by adam descent
     against a target image rendered with the true parameters."""
-    from pim_tpu.render.diff import make_render_fn
+    from pim.render.diff import make_render_fn
 
     meta, params, _loss, args = cornell_setup
     arrays, lights, ca, _, _ = args
@@ -203,7 +203,7 @@ def test_inverse_rendering_converges(cornell_setup):
     bad = params._replace(
         mat_albedo=jnp.clip(params.mat_albedo * 0.5 + 0.2, 0.0, 1.0)
     )
-    from pim_tpu.render.diff import DiffParams
+    from pim.render.diff import DiffParams
 
     only_albedo = DiffParams(
         mat_albedo=True, mat_rome=False, atlas_planes=False,

@@ -2,11 +2,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pim_tpu.core import rng
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
-from pim_tpu.render.integrator import luminance_stddev, trace_rays
-from pim_tpu.render.scene import build_scene
+from pim.core import rng
+from pim.geom.cornell import build_cornell_box
+from pim.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
+from pim.render.integrator import luminance_stddev, trace_rays
+from pim.render.scene import build_scene
 
 
 @pytest.fixture(scope="module")

@@ -1,12 +1,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pim_tpu.core import rng
-from pim_tpu.geom.bvh import BvhArrays, build_bvh, validate_bvh
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.geom.entities import flatten
-from pim_tpu.math.sampling import sample_unit_sphere
-from pim_tpu.render import intersect as isect
+from pim.core import rng
+from pim.geom.bvh import BvhArrays, build_bvh, validate_bvh
+from pim.geom.cornell import build_cornell_box
+from pim.geom.entities import flatten
+from pim.math.sampling import sample_unit_sphere
+from pim.render import intersect as isect
 
 
 def _cornell_positions():

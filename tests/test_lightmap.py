@@ -2,11 +2,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pim_tpu.core.crate import Crate
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.geom.entities import flatten
-from pim_tpu.render import lightmap as lm
-from pim_tpu.render.scene import build_scene
+from pim.core.crate import Crate
+from pim.geom.cornell import build_cornell_box
+from pim.geom.entities import flatten
+from pim.render import lightmap as lm
+from pim.render.scene import build_scene
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +61,7 @@ def test_sharded_bake_bit_identical(cornell):
     """Process-sharded bake (contiguous texel slices, the scaling
     harness's lmbake mode / ref task-pool range claiming) is BIT-IDENTICAL
     to the unsharded bake: per-texel rng is (texel_id, frame)-seeded, so
-    slice boundaries cannot change any texel's samples (VERDICT r3 #6)."""
+    slice boundaries cannot change any texel's samples."""
     meta, arrays, lights, flat = cornell
     pack0 = lm.pack_lightmaps(flat.positions, flat.normals,
                               texels_per_meter=0.5, atlas_size=32)

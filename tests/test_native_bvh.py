@@ -1,7 +1,7 @@
 """Native (C++) BVH builder: invariants + traversal equivalence vs brute.
 
-The native builder (pim_tpu/native/bvh_builder.cpp) must produce arrays the
-TPU traversal consumes identically to the numpy oracle builder — same
+The native builder (pim/native/bvh_builder.cpp) must produce arrays the
+traversal consumes identically to the numpy oracle builder — same
 invariants, same hits.  (Ref scene build: src/rendering/path_tracer.c:
 618-690, Embree RTC_BUILD_QUALITY_HIGH.)
 """
@@ -9,8 +9,8 @@ invariants, same hits.  (Ref scene build: src/rendering/path_tracer.c:
 import numpy as np
 import pytest
 
-from pim_tpu import native
-from pim_tpu.geom.bvh import build_bvh_numpy, validate_bvh
+from pim import native
+from pim.geom.bvh import build_bvh_numpy, validate_bvh
 
 
 def _soup(n_tris: int, seed: int = 7) -> np.ndarray:
@@ -50,7 +50,7 @@ def test_native_degenerate_identical_tris():
 def test_native_traversal_matches_brute():
     import jax.numpy as jnp
 
-    from pim_tpu.render.intersect import intersect_brute, intersect_bvh
+    from pim.render.intersect import intersect_brute, intersect_bvh
 
     pos_np = _soup(300, seed=3)
     bvh = native.build_bvh_native(pos_np)

@@ -8,7 +8,7 @@ the same truncated transport, so their means must agree — and a THIRD
 independent estimator (trace_brute: emission at every vertex, no NEE)
 arbitrates if they disagree (tools/parity_debug.py).
 
-Tolerance spec — measured, not asserted by fiat (VERDICT r2 #1/weak #1).
+Tolerance spec — measured, not asserted by fiat.
 Each side renders K independent chunks, giving a mean and a measured
 standard error.  Three layered gates:
 
@@ -43,27 +43,27 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pim_tpu.core import rng as prng
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.math.vec3 import V3
-from pim_tpu.render.integrator import trace_rays
-from pim_tpu.render.scene import build_scene
+from pim.core import rng as prng
+from pim.geom.cornell import build_cornell_box
+from pim.math.vec3 import V3
+from pim.render.integrator import trace_rays
+from pim.render.scene import build_scene
 
 from tests.oracle import pt_oracle as oracle
 
 import os as _os
 
 W = H = int(_os.environ.get("PIM_PARITY_RES", "32"))
-             # default 32² (r4: raised from 24², VERDICT r3 #3): the numpy
+             # default 32² (r4: raised from 24²): the numpy
              # oracle is the budget ceiling — 64² quadruples its cost and
              # the full tier already runs ~25-40 min.  PIM_PARITY_RES=64
              # runs the same gates at 64² when a deeper audit is wanted.
              # Resolution certification at BASELINE scale is carried by a
-             # STRONGER gate instead (r5): bench.py checks the TPU 512²
+             # STRONGER gate instead: bench.py checks the GPU 512²
              # Cornell image mean against a CPU-framework-rendered
              # absolute band (tools/calibrate_bench_gate.py) on every
              # bench run — the chain oracle <-> CPU fw (32² statistics,
-             # this file) and CPU fw <-> TPU fw (512² means) certifies
+             # this file) and CPU fw <-> GPU fw (512² means) certifies
              # the published image at full resolution.
 EYE = (-4.0, 0.0, 4.0)
 AT = (0.0, -1.0, 0.0)
@@ -116,7 +116,7 @@ def _framework_render(ents, pool, ro, rd, spp, seed=0, clip=None, sky=None):
 
 def _override_materials(ents, pool, roughness, metallic):
     """Force every non-emissive material to a given roughness/metallic."""
-    from pim_tpu.geom.material import Material
+    from pim.geom.material import Material
 
     for i in range(ents.count):
         m = ents.materials[i]
@@ -260,9 +260,9 @@ def _small_map_scene():
     paths with a testable tail."""
     import numpy as np
 
-    from pim_tpu.geom.maps import build_map_scene
-    from pim_tpu.geom.material import Material, MatFlag
-    from pim_tpu.render.sky import bake_sky_cubemap, earth_atmosphere
+    from pim.geom.maps import build_map_scene
+    from pim.geom.material import Material, MatFlag
+    from pim.render.sky import bake_sky_cubemap, earth_atmosphere
 
     ents, pool = build_map_scene(rooms=(1, 1), spheres_per_room=2,
                                  sphere_steps=8, tex_size=8, seed=2)
@@ -288,8 +288,8 @@ def _small_map_scene():
 @pytest.mark.slow
 def test_parity_textured_sky():
     """BASELINE configs #3/#4 scope: textured materials + sky cubemap +
-    sky-panel NEE, cross-checked against the extended oracle (VERDICT r3
-    missing #1 — previously these paths had no radiance contract)."""
+    sky-panel NEE, cross-checked against the extended oracle
+    (previously these paths had no radiance contract)."""
     ents, pool, sky = _small_map_scene()
     eye = (-2.2, 1.7, -2.2)
     at = (1.5, 1.0, 1.5)
@@ -301,7 +301,7 @@ def test_parity_textured_sky():
 
 @pytest.mark.slow
 def test_parity_refractive():
-    """VERDICT r4 missing #2: independent radiance contract for
+    """Independent radiance contract for
     refraction.  Map-class scene KEEPING its refractive glass spheres
     (normal maps stripped — covered by test_parity_normal_maps), vs the
     oracle's Scatter_Refractive transliteration (path_tracer.c:1576-1638:
@@ -309,9 +309,9 @@ def test_parity_refractive():
     transmittance, full-weight emission on refractive chains)."""
     import numpy as np
 
-    from pim_tpu.geom.maps import build_map_scene
-    from pim_tpu.geom.material import Material
-    from pim_tpu.render.sky import bake_sky_cubemap, earth_atmosphere
+    from pim.geom.maps import build_map_scene
+    from pim.geom.material import Material
+    from pim.render.sky import bake_sky_cubemap, earth_atmosphere
 
     ents, pool = build_map_scene(rooms=(1, 1), spheres_per_room=2,
                                  sphere_steps=8, tex_size=8, seed=2)
@@ -336,15 +336,15 @@ def test_parity_refractive():
 
 @pytest.mark.slow
 def test_parity_normal_maps():
-    """VERDICT r4 missing #2: independent radiance contract for normal
+    """Independent radiance contract for normal
     maps.  Map-class scene KEEPING its normal-mapped walls (glass swapped
     to plastic — covered by test_parity_refractive), vs the oracle's
     SampleNormal transliteration (path_tracer.c:1363-1375)."""
     import numpy as np
 
-    from pim_tpu.geom.maps import build_map_scene
-    from pim_tpu.geom.material import Material, MatFlag
-    from pim_tpu.render.sky import bake_sky_cubemap, earth_atmosphere
+    from pim.geom.maps import build_map_scene
+    from pim.geom.material import Material, MatFlag
+    from pim.render.sky import bake_sky_cubemap, earth_atmosphere
 
     ents, pool = build_map_scene(rooms=(1, 1), spheres_per_room=2,
                                  sphere_steps=8, tex_size=8, seed=2)
@@ -377,8 +377,8 @@ def _golden_map_scene():
     including paths outside the oracle's scope (drift tripwire only)."""
     import numpy as np
 
-    from pim_tpu.geom.maps import build_map_scene
-    from pim_tpu.render.sky import bake_sky_cubemap, earth_atmosphere
+    from pim.geom.maps import build_map_scene
+    from pim.render.sky import bake_sky_cubemap, earth_atmosphere
 
     ents, pool = build_map_scene(rooms=(1, 1), spheres_per_room=3,
                                  sphere_steps=8, tex_size=8, seed=2)
@@ -396,7 +396,7 @@ def _golden_map_scene():
 @pytest.mark.slow
 def test_framework_golden_map():
     """Fixed-seed drift tripwire for the textured/sky/normal-map/glass
-    paths (VERDICT r3 missing #1: configs #3/#4 had no red test)."""
+    paths (configs #3/#4 had no red test)."""
     import os
 
     path = os.path.join(os.path.dirname(__file__), "goldens",

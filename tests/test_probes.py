@@ -1,15 +1,15 @@
 """Light-probe (ambient cube + L1 SH) fit and workflow tests.
 
 Ref: AmbCube_Bake traces Pt_RayGen rays and folds them progressively
-(/root/reference/src/math/ambcube.c:5-32); sh.h provides the L1 basis.
+(the reference's src/math/ambcube.c:5-32); sh.h provides the L1 basis.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.render.probes import (
+from pim.geom.cornell import build_cornell_box
+from pim.render.probes import (
     LightProbe,
     probe_bake_step,
     probe_from_crate_entry,
@@ -19,7 +19,7 @@ from pim_tpu.render.probes import (
     probe_sh_irradiance,
     probe_to_crate_entry,
 )
-from pim_tpu.render.scene import build_scene
+from pim.render.scene import build_scene
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +30,7 @@ def cornell_scene():
 
 def test_sh_projection_recovers_analytic_field():
     """Projecting an exact L1 field from uniform samples recovers it."""
-    from pim_tpu.math.sh import sh_l1_eval, sh_l1_project
+    from pim.math.sh import sh_l1_eval, sh_l1_project
 
     rng = np.random.default_rng(0)
     d = rng.normal(size=(20000, 3))

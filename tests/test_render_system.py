@@ -8,9 +8,9 @@ import os
 import numpy as np
 import pytest
 
-from pim_tpu.core import cvars as cv
-from pim_tpu.core.cmd import CmdStat, get_cmd_system
-from pim_tpu.render.render_system import RenderSystem
+from pim.core import cvars as cv
+from pim.core.cmd import CmdStat, get_cmd_system
+from pim.render.render_system import RenderSystem
 
 W = H = 16
 BOUNCES = 3
@@ -55,7 +55,7 @@ def test_progressive_frames_accumulate(rs):
 
 def test_checkpoint_resume_bit_identical(rs):
     """Kill-and-resume continuation must match an uninterrupted run exactly
-    (ref resumable bake state, lightmap.c:1225+; VERDICT r2 #4)."""
+    (ref resumable bake state, lightmap.c:1225+)."""
     _frames(rs, 2)
     rs.checkpoint_save("maps/t.ckpt.crate")
     _frames(rs, 2)
@@ -109,8 +109,8 @@ def test_mapsave_roundtrips_textures(rs):
 
 
 def test_cvar_bounce_change_rebuilds_step(rs):
-    """pt_max_bounces must take effect without a scene rebuild (VERDICT r2
-    weak #3: frozen-cvar config lie; ref ConVar_CheckDirty usage
+    """pt_max_bounces must take effect without a scene rebuild
+    (frozen-cvar config lie; ref ConVar_CheckDirty usage
     render_system.c:429-466)."""
     _frames(rs, 1)
     step_before = rs._step

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pim_tpu.core import rng
+from pim.core import rng
 
 
 def _pcg4d_ref(v):

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pim_tpu.core import rng
-from pim_tpu.math import sampling
+from pim.core import rng
+from pim.math import sampling
 
 
 def _uniform2(n, seed=0):

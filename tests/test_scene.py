@@ -1,7 +1,7 @@
 import numpy as np
 
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.render.scene import build_scene
+from pim.geom.cornell import build_cornell_box
+from pim.render.scene import build_scene
 
 
 def test_cornell_scene_build():
@@ -43,32 +43,3 @@ def test_cornell_materials_roundtrip():
     wall_mat = ents.materials[0]
     x0, y0, w, h, stride = rec[:, wall_mat.albedo_tex]
     np.testing.assert_allclose(planes[:3, y0 * stride + x0], 0.9, atol=0.02)
-
-
-def test_atlas_corner_planes_match_explicit_corners():
-    """corner-plane construction (scene._build_atlas_corner_planes): one
-    i00 lookup into the 16-row table must equal the four explicitly
-    clamped corner lookups of sample_atlas_bilinear (sampler.h corner
-    semantics), for every sub-texture including 1x1 flats and edges."""
-    from pim_tpu.render.scene import _build_atlas_corner_planes
-
-    rng = np.random.default_rng(4)
-    atlas = rng.uniform(0, 1, (16, 32, 4)).astype(np.float32)
-    recs = np.asarray([[0, 0, 8, 8], [8, 0, 1, 1], [9, 0, 5, 3],
-                       [0, 8, 32, 8]], np.int64)
-    corners = _build_atlas_corner_planes(atlas, recs)
-    planes = atlas.reshape(-1, 4).T
-    stride = atlas.shape[1]
-    for (x0, y0, w, h) in recs:
-        for ax in range(w):
-            for ay in range(h):
-                bx = min(ax + 1, w - 1)
-                by = min(ay + 1, h - 1)
-                i00 = (y0 + ay) * stride + x0 + ax
-                idx = [i00,
-                       (y0 + ay) * stride + x0 + bx,
-                       (y0 + by) * stride + x0 + ax,
-                       (y0 + by) * stride + x0 + bx]
-                for k in range(4):
-                    for c in range(4):
-                        assert corners[k * 4 + c, i00] == planes[c, idx[k]]

@@ -11,16 +11,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pim_tpu.core import rng
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.parallel.shard import (
+from pim.core import rng
+from pim.geom.cornell import build_cornell_box
+from pim.parallel.shard import (
     make_mesh,
     make_sharded_render_step,
     make_sharded_train_step,
 )
-from pim_tpu.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
-from pim_tpu.render.integrator import trace_rays
-from pim_tpu.render.scene import build_scene
+from pim.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
+from pim.render.integrator import trace_rays
+from pim.render.scene import build_scene
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_sharded_render_matches_unsharded(cornell):
 
 @pytest.mark.slow
 def test_sharded_train_step_runs_and_learns(cornell):
-    from pim_tpu.render.diff import extract_params
+    from pim.render.diff import extract_params
 
     meta, arrays, lights = cornell
     w = h = 16

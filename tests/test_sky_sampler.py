@@ -13,8 +13,8 @@ Cubemap_kRights/kUps).
 import numpy as np
 import jax.numpy as jnp
 
-from pim_tpu.math.vec3 import V3
-from pim_tpu.render.sky import sample_sky_cubemap, sample_sky_cubemap_soa
+from pim.math.vec3 import V3
+from pim.render.sky import sample_sky_cubemap, sample_sky_cubemap_soa
 from tests.oracle import pt_oracle as oracle
 
 

@@ -1,14 +1,14 @@
 """Full-map e1m1 progressive lightmap bake, end to end (BASELINE config
-#5; VERDICT r4 missing #3).
+#5).
 
 Packs e1m1's ~81k tris at the reference release density (4 texels/m,
-/root/reference/src/common/cvars.c:499-525), runs the progressive SG bake
-to a fixed sample budget on the TPU (texel-sharded steps so the wavefront
+the reference's src/common/cvars.c:499-525), runs the progressive SG bake
+to a fixed sample budget on the GPU (texel-sharded steps so the wavefront
 stays 256k lanes), exercises the crate save -> load -> continue resume
 path with a bit-identity check mid-run, denoises the irradiance atlas
 (DenoiseType.Lightmap), and writes artifacts:
 
-  data/e1m1/lmpack.npz                  the resumable crate checkpoint
+  data/e1m1/lmpack.npz                  the resumable crate checkpoint (gitignored)
   screenshots/e1m1_lightmap_preview.png the denoised irradiance atlas
   prints: texel count, atlas size, texels/s, step ms
 
@@ -27,7 +27,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-from pim_tpu.core.compile_cache import enable_compile_cache
+from pim.core.compile_cache import enable_compile_cache
 enable_compile_cache()
 
 import jax.numpy as jnp
@@ -38,18 +38,18 @@ def main():
     spp = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     density = float(sys.argv[2]) if len(sys.argv) > 2 else 4.0
 
-    from pim_tpu.core.crate import Crate
-    from pim_tpu.geom.entities import flatten
-    from pim_tpu.geom.gltf import load_gltf_scene
-    from pim_tpu.render import lightmap as lm
-    from pim_tpu.render.denoise import DenoiseType, denoise
-    from pim_tpu.render.scene import build_scene
-    from pim_tpu.render.screenshot import write_png
-    from pim_tpu.render.sky import bake_sky_cubemap, earth_atmosphere
+    from pim.core.crate import Crate
+    from pim.geom.entities import flatten
+    from pim.geom.gltf import load_gltf_scene
+    from pim.render import lightmap as lm
+    from pim.render.denoise import DenoiseType, denoise
+    from pim.render.scene import build_scene
+    from pim.render.screenshot import write_png
+    from pim.render.sky import bake_sky_cubemap, earth_atmosphere
 
     path = os.path.join("data", "e1m1", "glTF", "e1m1.gltf")
     if not os.path.exists(path):
-        from pim_tpu.geom.maps import export_map
+        from pim.geom.maps import export_map
 
         path = export_map("e1m1", base_dir="data", rooms=(3, 3), seed=1)
     ents, pool = load_gltf_scene(path)

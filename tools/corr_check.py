@@ -1,4 +1,4 @@
-"""Check sample-to-sample decorrelation of the integrator (TPU or CPU).
+"""Check sample-to-sample decorrelation of the integrator (GPU or CPU).
 
 Prints the mean off-diagonal correlation of 16 one-sample images and the
 variance-reduction ratio raw vs luminance-clipped.
@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pim_tpu.core import rng
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
-from pim_tpu.render.integrator import trace_rays
-from pim_tpu.render.scene import build_scene
+from pim.core import rng
+from pim.geom.cornell import build_cornell_box
+from pim.render.camera import Camera, DofInfo, camera_arrays, generate_primary_rays
+from pim.render.integrator import trace_rays
+from pim.render.scene import build_scene
 
 n = 24
 ents, pool = build_cornell_box("boxes")

@@ -11,10 +11,10 @@ import numpy as np
 
 jax.config.update("jax_platforms", "cpu")
 
-from pim_tpu.geom.cornell import build_cornell_box
-from pim_tpu.render.camera import Camera, DofInfo, camera_arrays
-from pim_tpu.render.diff import extract_params, make_loss_fn
-from pim_tpu.render.scene import build_scene
+from pim.geom.cornell import build_cornell_box
+from pim.render.camera import Camera, DofInfo, camera_arrays
+from pim.render.diff import extract_params, make_loss_fn
+from pim.render.scene import build_scene
 
 W = H = 16
 BOUNCES = 3

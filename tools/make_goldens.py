@@ -21,7 +21,7 @@ sys.path.insert(0, ".")
 sys.path.insert(0, "tests")
 
 from tests.test_parity import _framework_render, _rays
-from pim_tpu.geom.cornell import build_cornell_box
+from pim.geom.cornell import build_cornell_box
 
 
 def main():

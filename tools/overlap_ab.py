@@ -9,7 +9,7 @@ A/B on the sharded train step over an N-virtual-device mesh:
 
 overlap benefit = (t_B - t_A) / t_B.  On virtual CPU devices the
 collectives are shared-memory copies, so the measurable benefit bounds
-from below what ICI-latency collectives gain on a real pod; the point of
+from below what collectives between real cards gain; the point of
 the artifact is that the schedule difference EXISTS and is timed, not
 guessed.  Writes the result into SCALING.md's appendix.
 
@@ -36,11 +36,11 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from pim_tpu.geom.cornell import build_cornell_box
-    from pim_tpu.parallel.shard import make_mesh, make_sharded_train_step
-    from pim_tpu.render.camera import Camera, DofInfo, camera_arrays
-    from pim_tpu.render.diff import extract_params
-    from pim_tpu.render.scene import build_scene
+    from pim.geom.cornell import build_cornell_box
+    from pim.parallel.shard import make_mesh, make_sharded_train_step
+    from pim.render.camera import Camera, DofInfo, camera_arrays
+    from pim.render.diff import extract_params
+    from pim.render.scene import build_scene
 
     n_dev = len(jax.devices())
     mesh = make_mesh(n_dev)
@@ -81,7 +81,7 @@ def main():
         marker = "## Overlap"
         block = (f"\n{marker}\n\n{line}\nCaveat: virtual CPU devices make "
                  "collectives shared-memory copies; this lower-bounds the "
-                 "benefit ICI-latency collectives see on a real pod.\n")
+                 "benefit collectives between real cards see.\n")
         if marker in txt:
             txt = txt[: txt.index(marker)] + block.lstrip("\n")
         else:

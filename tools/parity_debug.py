@@ -1,4 +1,4 @@
-"""Three-way arbiter for the diffuse-Cornell parity bias (VERDICT r2 #1).
+"""Three-way arbiter for the diffuse-Cornell parity bias.
 
 Renders the 24x24 diffuse Cornell with:
   (a) the framework integrator
@@ -20,7 +20,7 @@ sys.path.insert(0, "tests")
 from tests.test_parity import (
     BOUNCES, _framework_render, _override_materials, _rays,
 )
-from pim_tpu.geom.cornell import build_cornell_box
+from pim.geom.cornell import build_cornell_box
 from tests.oracle import pt_oracle as oracle
 
 

@@ -1,8 +1,10 @@
-"""Multi-host scaling harness (VERDICT r2 #2; BASELINE scaling row).
+"""Multi-host scaling harness (BASELINE scaling row).
 
 Launches tools/scaling_worker.py as N separate OS processes joined via
-`jax.distributed` (gloo collectives over loopback — the same code path a
-real multi-host TPU pod uses, minus ICI).  Weak scaling: each process
+`jax.distributed` (gloo collectives over loopback — the same
+process-federation code path a multi-host run uses).  It is a CPU harness:
+every worker gets JAX_PLATFORMS=cpu explicitly, so N workers never open
+the GPU N times (one JAX process per card).  Weak scaling: each process
 keeps a fixed per-process pixel count, so ideal scaling holds wall time
 constant while global throughput grows linearly.
 
@@ -34,7 +36,7 @@ def run_world(nprocs: int, steps: int = None, devs_per_proc: int = 1) -> dict:
         steps = int(os.environ.get("PIM_SCALE_STEPS", "32"))
     env_common = dict(
         os.environ,
-        JAX_PLATFORMS="cpu",
+        JAX_PLATFORMS="cpu",  # a CPU harness: the workers stay off the GPU
         PIM_COORDINATOR=f"127.0.0.1:{BASE_PORT + nprocs + 37 * devs_per_proc}",
         PIM_NUM_PROCS=str(nprocs),
         PIM_SCALE_STEPS=str(steps),
@@ -80,7 +82,7 @@ def _parse_world(a: str):
 def write_lmbake_section(rows):
     """Append/replace the '## Lightmap bake' STRONG-scaling section of
     SCALING.md (texels of ONE map sharded across ranks; ideal = wall
-    halves per doubling; VERDICT r3 #6)."""
+    halves per doubling)."""
     base = rows[0]["mpaths_per_s"]
     lines = [
         "## Lightmap bake scaling",
@@ -140,10 +142,10 @@ def main():
         "",
         "`jax.distributed` worlds over loopback (gloo), each rank PINNED to",
         "its own core, Cornell 64x64/process, 3 bounces; the same",
-        "process-federation + psum path a TPU pod runs over ICI/DCN.",
+        "process-federation + psum path a multi-host run uses.",
         "Worlds are `procs x devs/proc`: multi-device rows federate several",
-        "virtual CPU devices per process (the real-TPU host shape, 4-8",
-        "chips/host) through one global mesh — collectives then cross both",
+        "virtual CPU devices per process (the shape of a host with several",
+        "cards) through one global mesh — collectives then cross both",
         "the in-process device boundary and the gloo process boundary.",
         "Efficiency = mpaths/s / (nprocs * 1-proc mpaths/s): per-PROCESS",
         "weak scaling (per-process pixels fixed; a process's devices share",

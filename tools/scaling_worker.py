@@ -1,4 +1,4 @@
-"""One process of the multi-host scaling harness (VERDICT r2 #2).
+"""One process of the multi-host scaling harness.
 
 Launched by tools/scaling_bench.py with PIM_PROC_ID/PIM_NUM_PROCS/
 PIM_COORDINATOR set.  Joins the jax.distributed world, builds the Cornell
@@ -22,14 +22,14 @@ def main():
     bounces = int(os.environ.get("PIM_SCALE_BOUNCES", "3"))
     devs_per_proc = int(os.environ.get("PIM_DEVS_PER_PROC", "1"))
     if devs_per_proc > 1:
-        # multi-chip-per-host worlds (a real TPU host runs 4-8 chips):
+        # multi-card-per-host worlds:
         # virtual CPU devices federate through the same mesh machinery
         flags = os.environ.get("XLA_FLAGS", "")
         os.environ["XLA_FLAGS"] = (
             f"{flags} --xla_force_host_platform_device_count={devs_per_proc}"
         ).strip()
 
-    from pim_tpu.parallel.dist import global_mesh, init_distributed, replicate
+    from pim.parallel.dist import global_mesh, init_distributed, replicate
 
     info = init_distributed()
 
@@ -37,10 +37,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from pim_tpu.geom.cornell import build_cornell_box
-    from pim_tpu.parallel.shard import make_sharded_render_step
-    from pim_tpu.render.camera import Camera, DofInfo, camera_arrays
-    from pim_tpu.render.scene import build_scene
+    from pim.geom.cornell import build_cornell_box
+    from pim.parallel.shard import make_sharded_render_step
+    from pim.render.camera import Camera, DofInfo, camera_arrays
+    from pim.render.scene import build_scene
 
     if os.environ.get("PIM_SCALE_MODE") == "lmbake":
         return lmbake_main(info, steps)
@@ -91,7 +91,7 @@ def main():
 
 
 def lmbake_main(info, steps):
-    """Process-sharded progressive lightmap bake (VERDICT r3 #6; BASELINE
+    """Process-sharded progressive lightmap bake (BASELINE
     row 5 / ref Lightmap_Trace, render_system.c:181-213 + lightmap.c:
     1125-1201).  STRONG scaling over one map's texels: each rank bakes its
     contiguous slice of the texel axis — embarrassingly parallel, exactly
@@ -106,11 +106,11 @@ def lmbake_main(info, steps):
     import jax.numpy as jnp
     import numpy as np
 
-    from pim_tpu.core import cvars as cv
-    from pim_tpu.geom.entities import flatten
-    from pim_tpu.geom.maps import build_map_scene
-    from pim_tpu.render import lightmap as lm
-    from pim_tpu.render.scene import build_scene
+    from pim.core import cvars as cv
+    from pim.geom.entities import flatten
+    from pim.geom.maps import build_map_scene
+    from pim.render import lightmap as lm
+    from pim.render.scene import build_scene
 
     rooms = int(os.environ.get("PIM_SCALE_LM_ROOMS", "2"))
     density = float(os.environ.get("PIM_SCALE_LM_DENSITY", "4.0"))
